@@ -6,7 +6,7 @@
 
 PY ?= python3
 
-.PHONY: all native test test-fast bench tpu-smoke fixtures oracles htslib panels clean
+.PHONY: all native test test-fast test-gpu bench chip-smoke fixtures oracles htslib panels clean
 
 all: native
 
@@ -33,10 +33,14 @@ test-fast:
 bench:
 	$(PY) bench.py
 
-# golden CLI surface through the Mosaic-compiled kernels on a real TPU
-# (CI runs Pallas interpret-only; see scripts/tpu_smoke.py)
-tpu-smoke:
-	$(PY) scripts/tpu_smoke.py
+# the GPU-only tests (skip on a CPU-only host)
+test-gpu:
+	$(PY) -m pytest tests/ -q -m gpu
+
+# the main path on one GPU against numpy and the CPU backend
+# (chip_smoke.py --four-cards: the mesh path on four GPUs)
+chip-smoke:
+	$(PY) chip_smoke.py
 
 fixtures:
 	$(PY) scripts/make_fixtures.py

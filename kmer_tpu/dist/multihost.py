@@ -4,7 +4,7 @@ and the cross-host driver loop for the sharded sort engine.
 The reference is single-node shared memory (pthreads + atomics,
 SURVEY.md §2.3 P7) — this module is the new-build territory SURVEY.md §5
 (last row) calls for: FASTQ files data-parallel across hosts over DCN,
-k-mer routing by hash prefix across chips over ICI
+k-mer routing by hash prefix across devices over the interconnect
 (kmer_tpu.dist.sharded), histogram merges via psum, process-0 output.
 
 Host coordination: every host must participate in every collective, but
@@ -24,6 +24,7 @@ import jax
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from ..pipeline.counter import _iter_packed
+from ..utils.cli import env_flag
 from . import sharded
 
 
@@ -32,7 +33,7 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """jax.distributed.initialize with env-var defaults
     (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or
-    the cluster auto-detection JAX ships for TPU pods).  Call before any
+    the cluster auto-detection JAX ships).  Call before any
     other JAX use on every host.  A single-process run needs no init."""
     if num_processes in (None, 1) and os.environ.get("JAX_NUM_PROCESSES", "1") == "1" \
             and coordinator_address is None:
@@ -60,8 +61,7 @@ def single_reader() -> bool:
     totals and bloom admission order — PARITY.md divergences 8/10) then
     matches a 1-process run of the same mesh; the cost is that ingest
     is bounded by one host's reader + the broadcast."""
-    return os.environ.get("KMER_TPU_SINGLE_READER", "").strip().lower() \
-        in ("1", "true", "on", "yes")
+    return env_flag("KMER_TPU_SINGLE_READER", False)
 
 
 def _bcast_batches(paths: Sequence[str], k: int, block: int, n_rows: int,

@@ -12,8 +12,6 @@ from __future__ import annotations
 import os
 import sys
 
-import numpy as np
-
 from dataclasses import dataclass, field
 from typing import List, Optional, TextIO, Tuple
 
@@ -174,74 +172,11 @@ class VafSample:
 
 def read_vaf_file(path: str, max_snps: int = 100000) -> VafSample:
     """Parse a VAF file (load_vaf_file, correlation-matrix.c:25-90):
-    sample name = basename minus .vaf; rows capped at max_snps.
-
-    Loading dominated correlation-matrix runtime at its documented
-    limits (1000 samples x 100k SNPs), so the well-formed fast path goes
-    through pandas' C csv engine; any deviation falls back to the
-    row-by-row loop with identical semantics."""
+    sample name = basename minus .vaf; rows capped at max_snps."""
     base = os.path.basename(path)
     if ".vaf" in base:
         base = base[: base.index(".vaf")]
     s = VafSample(base)
-    try:
-        import io as _io
-
-        import pandas as pd
-
-        with open(path, "rb") as f:
-            raw = f.read()
-        # strip leading comment/header lines; per-line filtering only
-        # when comments appear mid-body (never in machine-written VAFs)
-        start = 0
-        while start < len(raw):
-            nl = raw.find(b"\n", start)
-            end = nl if nl >= 0 else len(raw)
-            ln = raw[start:end]
-            if ln and not ln.startswith(b"#") and not ln.startswith(b"CHR"):
-                break
-            start = end + 1 if nl >= 0 else len(raw)
-        body = raw[start:]
-        if b"\n#" in body or b"\nCHR" in body:
-            body = b"\n".join(
-                ln
-                for ln in body.split(b"\n")
-                if ln
-                and not ln.startswith(b"#")
-                and not ln.startswith(b"CHR")
-            )
-        if not body.strip():
-            return s
-        df = pd.read_csv(
-            _io.BytesIO(body), sep="\t", header=None,
-            dtype={0: str, 1: np.int64, 2: str, 7: np.int64, 8: np.float64},
-            usecols=[0, 1, 2, 7, 8],
-            engine="c", on_bad_lines="skip", quoting=3, na_filter=False,
-        )
-        if df.shape[1] != 5:
-            raise ValueError("ragged VAF rows")
-        n_body_lines = sum(1 for ln in body.split(b"\n") if ln.strip())
-        if len(df) != n_body_lines:
-            # on_bad_lines="skip" silently drops rows whose field count
-            # differs from the first row's (e.g. an extra annotation
-            # column appended by another tool) — the reference's sscanf
-            # keeps such rows (first 9 fields, correlation-matrix.c:63),
-            # so any skip must divert to the exact fallback loop below
-            raise ValueError("VAF rows with mismatched field counts")
-        if len(df) > max_snps:
-            sys.stderr.write(
-                f"Warning: too many SNPs (max {max_snps}), truncating\n"
-            )
-        df = df.iloc[:max_snps]
-        pos = df[1].astype(np.int64)
-        depth = df[7].astype(np.int64)
-        vaf = df[8].astype(np.float64)
-        s.snps = list(zip(df[0].tolist(), pos.tolist(), df[2].tolist()))
-        s.vaf = vaf.tolist()
-        s.depth = depth.tolist()
-        return s
-    except Exception:
-        s = VafSample(base)
     with open(path) as f:
         for line in f:
             if line.startswith("#") or line.startswith("CHR"):

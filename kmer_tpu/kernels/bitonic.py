@@ -1,32 +1,19 @@
-"""Bitonic merge of sorted key-plane runs — the TPU "merge primitive".
+"""Bitonic merge of sorted key-plane runs — the merge primitive.
 
-`lax.sort` is a fixed bitonic network: it cannot exploit pre-sorted
-input, so re-sorting the concatenation of two sorted runs repeats the
-full log^2 cascade.  A bitonic MERGE is only the last log2(n) stages:
-reverse the second run (making the whole array one bitonic sequence),
-then run compare-exchange stages at strides n/2, n/4, ..., 1, where
-lane i exchanges with lane i XOR s — no gathers, no scatters, pure
-strided data movement (measured 0.77 s vs lax.sort's 1.39 s for
-2^28 lanes in the XLA formulation alone).
+`lax.sort` cannot exploit pre-sorted input, so re-sorting the
+concatenation of two sorted runs repeats the full sort.  A bitonic MERGE
+is only the last log2(n) compare-exchange stages: reverse the second
+run (making the whole array one bitonic sequence), then run stages at
+strides n/2, n/4, ..., 1, where lane i exchanges with lane i XOR s — no
+gathers, no scatters, pure strided data movement (`_xla_stage`: two
+rolls and an iota-mask select per plane).
 
-Two implementations of a stage cascade:
-  * XLA: jnp.roll by +/-s + iota-mask select (`_xla_stage`) — used for
-    strides >= the tile size, and for the whole cascade on non-TPU
-    backends (also the KMER_TPU_DEBUG oracle).
-  * Pallas (`_merge_tile_kernel`): ALL strides < 2^TILE_BITS run in a
-    single HBM round-trip — each grid cell loads one tile to VMEM and
-    applies the remaining ~18 stages in-register (after the high-stride
-    stages, every tile-aligned block is a bitonic sequence whose merge
-    is tile-local).  This collapses ~2/3 of the cascade's HBM traffic.
-
-Streaming engines sort each arriving block's planes (hidden under the
-host->device ingest, which is the end-to-end bottleneck — the device
-is otherwise idle) and pay only the final merges at finalization;
-see table.compactor.KmerCompactor(stream_sorted=...).
+Streaming engines can sort each arriving block's planes under the
+host->device ingest and pay only the final merges at finalization; see
+table.compactor.KmerCompactor(stream_sorted=...).
 
 The reference has no analog (khashl inserts in-place,
-/root/reference/kc-c4.c:116-128); this is the TPU-native replacement
-for "insertion overlaps reading".
+kc-c4.c:116-128).
 """
 
 from __future__ import annotations
@@ -35,18 +22,9 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 U32 = jnp.uint32
 SENT = jnp.uint32(0xFFFFFFFF)
-
-TILE_BITS = 18  # 2^18 lanes/tile: 2 planes x 1 MB in VMEM (16 MB scope)
-TILE = 1 << TILE_BITS
-# the 3-plane kernel moves half again as much data per tile: 2^18 blew
-# the 16 MB scoped VMEM limit by 2 MB on a v5e (measured), 2^17 peaks
-# ~9 MB
-TILE3_BITS = 17
-
 
 def _xla_stage(h, l, s):
     """One compare-exchange at stride s on flat (n,) planes: partner is
@@ -100,401 +78,59 @@ def _xla_stage3(h, l, x, s):
             jnp.where(take, px, x))
 
 
-def _xstage_kernel(c, h_ref, l_ref, hp_ref, lp_ref, oh_ref, ol_ref):
-    """One compare-exchange stage at tile-granular stride c (lanes
-    stride = c*TILE): grid cell i sees its own tile and its partner tile
-    (i XOR c) via a second BlockSpec on the same arrays.  24 B/lane of
-    HBM traffic vs ~80 B/lane for the XLA roll+select formulation
-    (measured 27 ms -> ~8 ms per stage at 2^28 lanes on a v5e)."""
-    import jax.experimental.pallas as pl
-
-    i = pl.program_id(0)
-    low_i = 1 - ((i & c) != 0).astype(jnp.int32)  # scalar: keep-min tile?
-    h, l = h_ref[:, :], l_ref[:, :]
-    ph, pl_ = hp_ref[:, :], lp_ref[:, :]
-    less_i = ((ph < h) | ((ph == h) & (pl_ < l))).astype(jnp.int32)
-    take = low_i * less_i + (1 - low_i) * (1 - less_i)
-    oh_ref[:, :] = jnp.where(take == 1, ph, h)
-    ol_ref[:, :] = jnp.where(take == 1, pl_, l)
-
-
-def _xstage_kernel3(c, h_ref, l_ref, x_ref, hp_ref, lp_ref, xp_ref,
-                    oh_ref, ol_ref, ox_ref):
-    """Three-plane _xstage_kernel (lex keys (h, l, x))."""
-    import jax.experimental.pallas as pl
-
-    i = pl.program_id(0)
-    low_i = 1 - ((i & c) != 0).astype(jnp.int32)
-    h, l, x = h_ref[:, :], l_ref[:, :], x_ref[:, :]
-    ph, pl_, px = hp_ref[:, :], lp_ref[:, :], xp_ref[:, :]
-    less_i = ((ph < h) | ((ph == h) & ((pl_ < l)
-              | ((pl_ == l) & (px < x))))).astype(jnp.int32)
-    take = low_i * less_i + (1 - low_i) * (1 - less_i)
-    oh_ref[:, :] = jnp.where(take == 1, ph, h)
-    ol_ref[:, :] = jnp.where(take == 1, pl_, l)
-    ox_ref[:, :] = jnp.where(take == 1, px, x)
-
-
-def _xstage_kernel1(c, l_ref, lp_ref, ol_ref):
-    import jax.experimental.pallas as pl
-
-    i = pl.program_id(0)
-    low_i = 1 - ((i & c) != 0).astype(jnp.int32)
-    l, pl_ = l_ref[:, :], lp_ref[:, :]
-    less_i = (pl_ < l).astype(jnp.int32)
-    take = low_i * less_i + (1 - low_i) * (1 - less_i)
-    ol_ref[:, :] = jnp.where(take == 1, pl_, l)
-
-
-def _xstage_pallas(planes, c, tile_bits=TILE_BITS):
-    """Apply one stride >= tile stage to flat planes (first planes are
-    the lex keys; here all planes are keys).  c = stride >> tile_bits."""
-    import jax.experimental.pallas as pl
-
+def _cascade(stage, planes):
+    """Merge flat planes whose two halves are each ascending-sorted
+    (under the lex order `stage` compares) into fully sorted planes.  n
+    must be a power of two (callers pad with the all-ones sentinel,
+    which sorts last and stays in the tail).  The stride is dynamic
+    inside a fori_loop so buffers are reused across stages (unrolling
+    materializes one temporary per stage)."""
     n = planes[0].shape[0]
-    tile = 1 << tile_bits
-    rows_total, r_tile = n // 128, tile // 128
-    p2 = [p.reshape(rows_total, 128) for p in planes]
-    spec_self = pl.BlockSpec((r_tile, 128), lambda i: (i, 0))
-    # partner tile index = i XOR c (c is a power of two)
-    spec_part = pl.BlockSpec((r_tile, 128), lambda i: (i + c - 2 * (i & c), 0))
-    shape = jax.ShapeDtypeStruct((rows_total, 128), U32)
-    interp = jax.default_backend() != "tpu"
-    if len(planes) == 1:
-        ol = pl.pallas_call(
-            partial(_xstage_kernel1, c),
-            grid=(n // tile,),
-            in_specs=[spec_self, spec_part],
-            out_specs=spec_self,
-            out_shape=shape,
-            interpret=interp,
-        )(p2[0], p2[0])
-        return (ol.reshape(n),)
-    if len(planes) == 3:
-        oh, ol, ox = pl.pallas_call(
-            partial(_xstage_kernel3, c),
-            grid=(n // tile,),
-            in_specs=[spec_self] * 3 + [spec_part] * 3,
-            out_specs=[spec_self] * 3,
-            out_shape=[shape] * 3,
-            interpret=interp,
-        )(p2[0], p2[1], p2[2], p2[0], p2[1], p2[2])
-        return oh.reshape(n), ol.reshape(n), ox.reshape(n)
-    oh, ol = pl.pallas_call(
-        partial(_xstage_kernel, c),
-        grid=(n // tile,),
-        in_specs=[spec_self, spec_self, spec_part, spec_part],
-        out_specs=[spec_self, spec_self],
-        out_shape=[shape, shape],
-        interpret=interp,
-    )(p2[0], p2[1], p2[0], p2[1])
-    return oh.reshape(n), ol.reshape(n)
-
-
-def _merge_tile_kernel(hi_ref, lo_ref, oh_ref, ol_ref):
-    """All stride < TILE stages of the bitonic merge cascade for one
-    TILE-lane tile, in VMEM.  View: (TILE/128, 128).  Strides >= 128 are
-    row rolls (axis 0), strides < 128 lane rolls (axis 1); masks come
-    from iotas.  Data-vs-iota bool mixing is routed through i32
-    arithmetic (Mosaic relayout pitfall)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    h = hi_ref[:, :]
-    l = lo_ref[:, :]
-    rows = h.shape[0]
-    row = jax.lax.broadcasted_iota(jnp.int32, h.shape, 0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, h.shape, 1)
-    for k in range(TILE_BITS - 1, -1, -1):
-        s = 1 << k
-        if s >= 128:
-            r = s // 128
-            hp = pltpu.roll(h, rows - r, 0)
-            hm = pltpu.roll(h, r, 0)
-            lp = pltpu.roll(l, rows - r, 0)
-            lm = pltpu.roll(l, r, 0)
-            bit0_i = 1 - ((row >> (k - 7)) & 1)
-        else:
-            hp = pltpu.roll(h, 128 - s, 1)
-            hm = pltpu.roll(h, s, 1)
-            lp = pltpu.roll(l, 128 - s, 1)
-            lm = pltpu.roll(l, s, 1)
-            bit0_i = 1 - ((lane >> k) & 1)
-        ph = jnp.where(bit0_i == 1, hp, hm)
-        pl = jnp.where(bit0_i == 1, lp, lm)
-        less_i = ((ph < h) | ((ph == h) & (pl < l))).astype(jnp.int32)
-        take = bit0_i * less_i + (1 - bit0_i) * (1 - less_i)
-        h = jnp.where(take == 1, ph, h)
-        l = jnp.where(take == 1, pl, l)
-    oh_ref[:, :] = h
-    ol_ref[:, :] = l
-
-
-def _merge_tile_kernel3(hi_ref, lo_ref, x_ref, oh_ref, ol_ref, ox_ref):
-    """Three-plane _merge_tile_kernel (lex keys (hi, lo, x)).  Runs at
-    TILE3 = 2^17 lanes/tile: the extra plane's VMEM blew the 16 MB
-    scoped limit by 2 MB at 2^18 (measured on a v5e); 2^17 peaks ~9 MB."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    h = hi_ref[:, :]
-    l = lo_ref[:, :]
-    x = x_ref[:, :]
-    rows = h.shape[0]
-    row = jax.lax.broadcasted_iota(jnp.int32, h.shape, 0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, h.shape, 1)
-    for k in range(TILE3_BITS - 1, -1, -1):
-        s = 1 << k
-        if s >= 128:
-            r = s // 128
-            hp = pltpu.roll(h, rows - r, 0)
-            hm = pltpu.roll(h, r, 0)
-            lp = pltpu.roll(l, rows - r, 0)
-            lm = pltpu.roll(l, r, 0)
-            xp = pltpu.roll(x, rows - r, 0)
-            xm = pltpu.roll(x, r, 0)
-            bit0_i = 1 - ((row >> (k - 7)) & 1)
-        else:
-            hp = pltpu.roll(h, 128 - s, 1)
-            hm = pltpu.roll(h, s, 1)
-            lp = pltpu.roll(l, 128 - s, 1)
-            lm = pltpu.roll(l, s, 1)
-            xp = pltpu.roll(x, 128 - s, 1)
-            xm = pltpu.roll(x, s, 1)
-            bit0_i = 1 - ((lane >> k) & 1)
-        ph = jnp.where(bit0_i == 1, hp, hm)
-        pl = jnp.where(bit0_i == 1, lp, lm)
-        px = jnp.where(bit0_i == 1, xp, xm)
-        less_i = ((ph < h) | ((ph == h) & ((pl < l)
-                  | ((pl == l) & (px < x))))).astype(jnp.int32)
-        take = bit0_i * less_i + (1 - bit0_i) * (1 - less_i)
-        h = jnp.where(take == 1, ph, h)
-        l = jnp.where(take == 1, pl, l)
-        x = jnp.where(take == 1, px, x)
-    oh_ref[:, :] = h
-    ol_ref[:, :] = l
-    ox_ref[:, :] = x
-
-
-def _merge_tile_kernel1(lo_ref, ol_ref):
-    """Single-plane _merge_tile_kernel (compare and move one u32 plane —
-    half the VMEM traffic for one-plane compactors)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    l = lo_ref[:, :]
-    rows = l.shape[0]
-    row = jax.lax.broadcasted_iota(jnp.int32, l.shape, 0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, l.shape, 1)
-    for k in range(TILE_BITS - 1, -1, -1):
-        s = 1 << k
-        if s >= 128:
-            r = s // 128
-            lp = pltpu.roll(l, rows - r, 0)
-            lm = pltpu.roll(l, r, 0)
-            bit0_i = 1 - ((row >> (k - 7)) & 1)
-        else:
-            lp = pltpu.roll(l, 128 - s, 1)
-            lm = pltpu.roll(l, s, 1)
-            bit0_i = 1 - ((lane >> k) & 1)
-        pl = jnp.where(bit0_i == 1, lp, lm)
-        less_i = (pl < l).astype(jnp.int32)
-        take = bit0_i * less_i + (1 - bit0_i) * (1 - less_i)
-        l = jnp.where(take == 1, pl, l)
-    ol_ref[:, :] = l
-
-
-def _merge_low_strides_pallas(h, l):
-    """Apply every stride < TILE stage with one Pallas pass (grid over
-    TILE-lane tiles)."""
-    import jax.experimental.pallas as pl
-
-    n = h.shape[0]
-    assert n % TILE == 0
-    rows_total, r_tile = n // 128, TILE // 128
-    h2, l2 = h.reshape(rows_total, 128), l.reshape(rows_total, 128)
-    spec = pl.BlockSpec((r_tile, 128), lambda i: (i, 0))
-    oh, ol = pl.pallas_call(
-        _merge_tile_kernel,
-        grid=(n // TILE,),
-        in_specs=[spec, spec],
-        out_specs=[spec, spec],
-        out_shape=[
-            jax.ShapeDtypeStruct((rows_total, 128), U32),
-            jax.ShapeDtypeStruct((rows_total, 128), U32),
-        ],
-        interpret=jax.default_backend() != "tpu",
-    )(h2, l2)
-    return oh.reshape(n), ol.reshape(n)
-
-
-def _merge_low_strides_pallas3(h, l, x):
-    import jax.experimental.pallas as pl
-
-    n = h.shape[0]
-    tile3 = 1 << TILE3_BITS
-    assert n % tile3 == 0
-    rows_total, r_tile = n // 128, tile3 // 128
-    h2 = h.reshape(rows_total, 128)
-    l2 = l.reshape(rows_total, 128)
-    x2 = x.reshape(rows_total, 128)
-    spec = pl.BlockSpec((r_tile, 128), lambda i: (i, 0))
-    shape = jax.ShapeDtypeStruct((rows_total, 128), U32)
-    oh, ol, ox = pl.pallas_call(
-        _merge_tile_kernel3,
-        grid=(n // tile3,),
-        in_specs=[spec] * 3,
-        out_specs=[spec] * 3,
-        out_shape=[shape] * 3,
-        interpret=jax.default_backend() != "tpu",
-    )(h2, l2, x2)
-    return oh.reshape(n), ol.reshape(n), ox.reshape(n)
-
-
-def _merge_low_strides_pallas1(l):
-    import jax.experimental.pallas as pl
-
-    n = l.shape[0]
-    assert n % TILE == 0
-    rows_total, r_tile = n // 128, TILE // 128
-    l2 = l.reshape(rows_total, 128)
-    spec = pl.BlockSpec((r_tile, 128), lambda i: (i, 0))
-    ol = pl.pallas_call(
-        _merge_tile_kernel1,
-        grid=(n // TILE,),
-        in_specs=[spec],
-        out_specs=spec,
-        out_shape=jax.ShapeDtypeStruct((rows_total, 128), U32),
-        interpret=jax.default_backend() != "tpu",
-    )(l2)
-    return ol.reshape(n)
-
-
-def _merge_core1(lo, use_pallas=True):
-    """Single-plane merge_sorted_halves: merge a flat u32 plane whose two
-    halves are each ascending-sorted (one-plane compactor keys)."""
-    n = lo.shape[0]
     assert n & (n - 1) == 0, "merge needs power-of-two lanes"
     half = n // 2
-    lo = jnp.concatenate([lo[:half], lo[half:][::-1]])
+    planes = tuple(jnp.concatenate([p[:half], p[half:][::-1]])
+                   for p in planes)
     log2n = n.bit_length() - 1
-    lo_bits = min(TILE_BITS, log2n) if use_pallas and n >= TILE else 0
-    if log2n > lo_bits:
-        if lo_bits:
-            # high strides: one two-tile Pallas pass per stage (c static)
-            for k in range(log2n - 1, TILE_BITS - 1, -1):
-                (lo,) = _xstage_pallas((lo,), 1 << (k - TILE_BITS))
-        else:
-            def body(i, l):
-                s = jnp.int32(1) << (log2n - 1 - i)
-                return _xla_stage1(l, s)
 
-            lo = jax.lax.fori_loop(0, log2n - lo_bits, body, lo)
-    if lo_bits:
-        lo = _merge_low_strides_pallas1(lo)
-    return lo
+    def body(i, ps):
+        s = jnp.int32(1) << (log2n - 1 - i)
+        out = stage(*ps, s)
+        return out if isinstance(out, tuple) else (out,)
+
+    return jax.lax.fori_loop(0, log2n, body, planes)
 
 
-def _merge_core(hi, lo, use_pallas=True):
-    """Merge flat planes whose two halves are each ascending-sorted into
-    fully sorted planes.  n must be a power of two (callers pad with the
-    all-ones sentinel, which sorts last and stays in the tail)."""
-    n = hi.shape[0]
-    assert n & (n - 1) == 0, "merge needs power-of-two lanes"
-    half = n // 2
-    hi = jnp.concatenate([hi[:half], hi[half:][::-1]])
-    lo = jnp.concatenate([lo[:half], lo[half:][::-1]])
-    log2n = n.bit_length() - 1
-    lo_bits = min(TILE_BITS, log2n) if use_pallas and n >= TILE else 0
-    if log2n > lo_bits:
-        if lo_bits:
-            # high strides: one two-tile Pallas pass per stage (c static)
-            for k in range(log2n - 1, TILE_BITS - 1, -1):
-                hi, lo = _xstage_pallas((hi, lo), 1 << (k - TILE_BITS))
-        else:
-            # non-TPU path: dynamic s inside a fori_loop (buffers are
-            # reused across iterations — unrolling materializes tens
-            # of GB of XLA temporaries)
-            def body(i, hl):
-                s = jnp.int32(1) << (log2n - 1 - i)
-                return _xla_stage(*hl, s)
-
-            hi, lo = jax.lax.fori_loop(0, log2n - lo_bits, body, (hi, lo))
-    if lo_bits:
-        hi, lo = _merge_low_strides_pallas(hi, lo)
-    return hi, lo
+def _merge_core1(lo):
+    """Single-plane merge (one-plane compactor keys)."""
+    return _cascade(_xla_stage1, (lo,))[0]
 
 
-def _merge_core3(hi, lo, x, use_pallas=True):
-    """Three-plane merge_sorted_halves: lex keys (hi, lo, x) — the
-    deferred yak admission's (key_hi, key_lo, lane_idx) stream runs.
-    Each half must be ascending-sorted under the SAME triple order
-    (lax.sort num_keys=3, or a stable 2-key sort of ascending-idx
-    planes)."""
-    n = hi.shape[0]
-    assert n & (n - 1) == 0, "merge needs power-of-two lanes"
-    half = n // 2
-    hi = jnp.concatenate([hi[:half], hi[half:][::-1]])
-    lo = jnp.concatenate([lo[:half], lo[half:][::-1]])
-    x = jnp.concatenate([x[:half], x[half:][::-1]])
-    log2n = n.bit_length() - 1
-    lo_bits = (min(TILE3_BITS, log2n)
-               if use_pallas and n >= (1 << TILE3_BITS) else 0)
-    if log2n > lo_bits:
-        if lo_bits:
-            for k in range(log2n - 1, TILE3_BITS - 1, -1):
-                hi, lo, x = _xstage_pallas((hi, lo, x),
-                                           1 << (k - TILE3_BITS),
-                                           tile_bits=TILE3_BITS)
-        else:
-            def body(i, hlx):
-                s = jnp.int32(1) << (log2n - 1 - i)
-                return _xla_stage3(*hlx, s)
+def _merge_core(hi, lo):
+    """Two-plane merge: lex keys (hi, lo)."""
+    return _cascade(_xla_stage, (hi, lo))
 
-            hi, lo, x = jax.lax.fori_loop(0, log2n - lo_bits, body,
-                                          (hi, lo, x))
-    if lo_bits:
-        hi, lo, x = _merge_low_strides_pallas3(hi, lo, x)
-    return hi, lo, x
+
+def _merge_core3(hi, lo, x):
+    """Three-plane merge: lex keys (hi, lo, x) — the deferred yak
+    admission's (key_hi, key_lo, lane_idx) stream runs.  Each half must
+    be ascending-sorted under the SAME triple order (lax.sort
+    num_keys=3, or a stable 2-key sort of ascending-idx planes)."""
+    return _cascade(_xla_stage3, (hi, lo, x))
 
 
 # public jitted forms: the plain ones keep their inputs valid (tests,
-# external callers); the donated ones reuse the input planes' HBM for
-# the output — stream-sorted finalization merges throwaway concat
-# temporaries at 2+ GB a pair, where donation halves the peak (TPU only:
-# other backends ignore donation with a warning on tool stderr)
-merge_sorted_halves = partial(jax.jit, static_argnames=("use_pallas",))(
+# external callers); the donated ones reuse the input planes' device
+# memory for the output — stream-sorted finalization merges throwaway
+# concat temporaries at GB scale, where donation halves the peak
+merge_sorted_halves = jax.jit(_merge_core)
+merge_sorted_halves1 = jax.jit(_merge_core1)
+merge_sorted_halves3 = jax.jit(_merge_core3)
+merge_sorted_halves_donated = partial(jax.jit, donate_argnums=(0, 1))(
     _merge_core)
-merge_sorted_halves1 = partial(jax.jit, static_argnames=("use_pallas",))(
+merge_sorted_halves1_donated = partial(jax.jit, donate_argnums=(0,))(
     _merge_core1)
-merge_sorted_halves_donated = partial(
-    jax.jit, static_argnames=("use_pallas",), donate_argnums=(0, 1))(
-    _merge_core)
-merge_sorted_halves1_donated = partial(
-    jax.jit, static_argnames=("use_pallas",), donate_argnums=(0,))(
-    _merge_core1)
-merge_sorted_halves3 = partial(jax.jit, static_argnames=("use_pallas",))(
+merge_sorted_halves3_donated = partial(jax.jit, donate_argnums=(0, 1, 2))(
     _merge_core3)
-merge_sorted_halves3_donated = partial(
-    jax.jit, static_argnames=("use_pallas",), donate_argnums=(0, 1, 2))(
-    _merge_core3)
-
-
-def _xla_stage_dyn_body(log2n):
-    def body(i, hl):
-        s = jnp.int32(1) << (log2n - 1 - i)
-        return _xla_stage(*hl, s)
-
-    return body
-
-
-@jax.jit
-def merge_sorted_halves_xla(hi, lo):
-    """Pure-XLA merge (no Pallas) — the KMER_TPU_DEBUG oracle and the
-    non-TPU fallback inside jitted callers."""
-    n = hi.shape[0]
-    half = n // 2
-    hi = jnp.concatenate([hi[:half], hi[half:][::-1]])
-    lo = jnp.concatenate([lo[:half], lo[half:][::-1]])
-    log2n = n.bit_length() - 1
-    return jax.lax.fori_loop(0, log2n, _xla_stage_dyn_body(log2n), (hi, lo))
 
 
 # (run folding — chunk slicing, the binary-counter carry, and the

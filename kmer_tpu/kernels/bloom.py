@@ -1,4 +1,4 @@
-"""Blocked bloom filter — TPU-native equivalent of yak_bf_t.
+"""Blocked bloom filter — the device equivalent of yak_bf_t.
 
 Replicates the probe math of yak_bf_insert exactly
 (/root/reference/yak-count.c:69-108): 512-bit cache-line blocks
@@ -130,9 +130,9 @@ def insert_sequential(
     Formulation without a serial loop: an in-batch probe bit b of lane
     i counts as set iff min{lane j probing b} < i — ONE (bit, lane)
     sort groups each bit's probes with the first setter at the segment
-    start, and a payload sort restores probe order.  Costs two
-    3-plane sorts + one gather of n_hashes x lanes — only the exact
-    mode pays it.
+    start, and a scatter by the sorted position payload restores probe
+    order.  Costs one 3-plane sort + one gather + one scatter of
+    n_hashes x lanes — only the exact mode pays it.
 
     Same-lane duplicate probes (h2 cycling back over the 512-bit
     block, yak-count.c:100) also count as set, because yak_bf_insert
@@ -162,8 +162,11 @@ def insert_sequential(
         (s_bit[1:] == s_bit[:-1]) & (s_lane[1:] == s_lane[:-1]),
     ])
     in_batch = ((first_lane < s_lane) | dup_prev).astype(jnp.uint32)
-    # restore probe order: positions are unique, 1-key sort on them
-    _, verdict = jax.lax.sort((s_pos, in_batch), num_keys=1)
+    # restore probe order: s_pos is a permutation, so one scatter.  (A
+    # 1-key sort on it is the same result, but XLA's GPU compiler
+    # rewrites such a sort into a scatter that its verifier rejects.)
+    verdict = jnp.zeros_like(in_batch).at[s_pos].set(
+        in_batch, unique_indices=True)
     by_probe = verdict.reshape(spec.n_hashes, n_lanes)
     preset = valid
     for h, ix in enumerate(idxs):

@@ -4,10 +4,10 @@ Replicates the seq_nt4_table mapping of the reference
 (/root/reference/kc-c1.c:12-29): A/a->0, C/c->1, G/g->2, T/t/U/u->3,
 everything else -> 4 (invalid; resets the rolling k-mer window).
 
-Instead of a 256-entry LUT gather (slow on TPU), we use the classic
-arithmetic trick: g = (ascii >> 1) & 3 maps A->0 C->1 G->3 T->2, and the
-gray-code transform g ^ (g >> 1) fixes the order to A0 C1 G2 T3.  This is
-the TPU analog of the reference's SSSE3 PSHUFB encoder
+Instead of a 256-entry LUT gather, we use the classic arithmetic trick:
+g = (ascii >> 1) & 3 maps A->0 C->1 G->3 T->2, and the gray-code
+transform g ^ (g >> 1) fixes the order to A0 C1 G2 T3.  This is the
+data-parallel analog of the reference's SSSE3 PSHUFB encoder
 (/root/reference/vaf-counter.c:261-291) — a handful of elementwise ops
 instead of a table lookup.
 """

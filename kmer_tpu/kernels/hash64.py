@@ -2,7 +2,7 @@
 
 Bit-for-bit equivalent to hash64()/yak_hash64() in the reference
 (/root/reference/kc-c4.c:40-50, /root/reference/yak-count.c:48-58),
-implemented on (hi, lo) uint32 planes so it vectorizes on TPU lanes.
+implemented on (hi, lo) uint32 planes (kernels/u64.py).
 
 Also provides the khashl stock kh_hash_uint64 (/root/reference/khashl.h:334-343)
 and the murmur-finalizer kmer_hash of vaf-counter

@@ -5,20 +5,20 @@ The reference extracts k-mers with a sequential rolling window per read
 appended at the bottom, reverse complement at the top, window reset on
 any non-ACGT base, canonical = min(fwd, rev).
 
-TPU-native design: reads are packed end-to-end into one flat uint8 code
-buffer with a single invalid byte (code 4) separating consecutive reads.
-Because an invalid base resets the window, windows never straddle a read
-boundary, so the k-mer multiset over the flat buffer equals the union of
-per-read multisets — and every window is computed independently and in
-parallel instead of via a sequential scan:
+Data-parallel design: reads are packed end-to-end into one flat uint8
+code buffer with a single invalid byte (code 4) separating consecutive
+reads.  Because an invalid base resets the window, windows never
+straddle a read boundary, so the k-mer multiset over the flat buffer
+equals the union of per-read multisets — and every window is computed
+independently and in parallel instead of via a sequential scan:
 
     fwd[i] = sum_d code[i-d] << 2d            (d = 0..k-1)
     rev[i] = sum_d (3-code[i-d]) << 2(k-1-d)
 
-Each sum is k shifted adds on uint32 planes (hi plane for bit positions
->= 32), i.e. ~4k elementwise VPU ops per position, fully fused by XLA.
-Window validity ("no invalid base among the last k") is a length-k
-windowed sum of the invalid indicator, computed with one cumsum.
+Each sum is k shifted ORs on uint32 planes (hi plane for bit positions
+>= 32), i.e. ~4k elementwise ops per position, which XLA fuses into one
+loop.  Window validity ("no invalid base among the last k") is an OR of
+the same k shifted slices of the invalid indicator, fused alongside.
 """
 
 from __future__ import annotations
@@ -51,10 +51,14 @@ def extract_canonical(codes: jnp.ndarray, k: int, apply_hash64: bool = True) -> 
     pad = jnp.zeros((k - 1,), U32)
     pc = jnp.concatenate([pad, c32])
     pr = jnp.concatenate([pad, comp])
+    # positions before k-1 have no full window: pad the bad flags with True
+    pb = jnp.concatenate([jnp.ones((k - 1,), jnp.bool_), is_bad])
 
     zero = jnp.zeros((n,), U32)
     fwd_lo, fwd_hi, rev_lo, rev_hi = zero, zero, zero, zero
+    win_bad = jnp.zeros((n,), jnp.bool_)
     for d in range(k):
+        win_bad = win_bad | pb[k - 1 - d : k - 1 - d + n]
         vf = pc[k - 1 - d : k - 1 - d + n]  # code[i-d]
         bp = 2 * d
         if bp < 32:
@@ -80,12 +84,8 @@ def extract_canonical(codes: jnp.ndarray, k: int, apply_hash64: bool = True) -> 
         canon = u.U64(jnp.zeros_like(canon.hi), jnp.zeros_like(canon.lo))
 
     # validity: no invalid base within the trailing window of k positions
-    bad_i32 = is_bad.astype(jnp.int32)
-    csum0 = jnp.concatenate([jnp.zeros((1,), jnp.int32), jnp.cumsum(bad_i32)])
-    win_bad = csum0[k:] - csum0[:-k]  # for positions k-1 .. n-1
-    valid = jnp.concatenate(
-        [jnp.zeros((k - 1,), jnp.bool_), win_bad == 0]
-    )
+    # (a windowed OR over the same k slices, fused into the loop above)
+    valid = ~win_bad
 
     if apply_hash64:
         canon = hash64(canon, 2 * k)

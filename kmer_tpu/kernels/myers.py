@@ -6,7 +6,7 @@ word per pattern), exactly the edlib configuration ed-vaf-counter uses
 (/root/reference/ed-vaf-counter.c:103: EDLIB_MODE_HW, EDLIB_TASK_LOC;
 edlib core recurrence /root/reference/edlib.cpp:412).
 
-TPU mapping: the per-text-position recurrence is a lax.scan; the
+Device mapping: the per-text-position recurrence is a lax.scan; the
 (reads x patterns) plane is fully vectorized uint32 lanes — every read
 lane advances every pattern's automaton in parallel, replacing edlib's
 scalar word loop.  Per (read, pattern) we track the running best score

@@ -1,13 +1,9 @@
 """Segment operations over sorted key runs — the sort-based counting core.
 
-Motivation (measured on TPU v5e, see BENCH notes in bench.py): XLA
-gather/scatter on TPU execute at ~25ns/element (serialized), while
-2-key sort runs at ~4ns/element and elementwise/cumulative ops at
-<1ns/element.  A khashl-style hash table (random access per k-mer,
-/root/reference/khashl.h:197-221) is therefore the wrong shape for this
-hardware; counting by sort + segment reduction (the KMC/DSK approach)
-is ~50x faster.  These helpers implement the segment machinery with
-only sorts, scans, and one-hot matmuls — zero gathers/scatters.
+Counting by sort + segment reduction (the KMC/DSK approach) instead of a
+khashl-style hash table (random access per k-mer,
+reference khashl.h:197-221): these helpers implement the segment
+machinery with sorts, scans and one scatter-add histogram.
 """
 
 from __future__ import annotations
@@ -59,41 +55,19 @@ def segment_end_lengths(starts: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
     return is_end, length
 
 
-def histogram_by_matmul(bins: jnp.ndarray, mask: jnp.ndarray, n_bins: int) -> jnp.ndarray:
-    """Histogram of bins[mask] (masked lanes are parked in bin 0, which
-    callers never print).
+# Masked lanes go to this many dummy bins past the end (sliced off):
+# after a sort almost every lane is masked, and parking them all in one
+# bin would send hundreds of millions of atomic adds to one address.
+HIST_SPILL = 1024
 
-    On TPU: one-hot + MXU reduction — ~8x faster than a scatter-add
-    bincount there (XLA fuses the one-hot into the reduction, so the
-    one-hot matrix is never materialized).  Per-call lane count must
-    stay < 2^24 for exact f32 sums (callers chunk).
 
-    On CPU (tests / fallback): the one-hot path materializes an
-    n x n_bins f32 matrix (gigabytes); a scatter-add is the fast shape
-    there.  The backend is static at trace time, so this is a plain
-    Python branch."""
-    b = jnp.where(mask, jnp.minimum(bins, n_bins - 1), 0)
-    if jax.default_backend() == "tpu":
-        chunk = 1 << 23
-        if b.shape[0] > chunk:
-            # each chunk's f32 bin sums stay < 2^24 (exact); converting
-            # to i32 BEFORE the cross-chunk sum keeps a >2^24-lane bin
-            # exact too (one unchunked call would silently lose counts)
-            pad = (-b.shape[0]) % chunk
-            if pad:
-                b = jnp.concatenate([b, jnp.zeros((pad,), b.dtype)])
-            hs = jax.lax.map(
-                lambda bc: jnp.sum(
-                    jax.nn.one_hot(bc, n_bins, dtype=jnp.float32), axis=0
-                ).astype(I32),
-                b.reshape(-1, chunk),
-            )
-            h = jnp.sum(hs, axis=0)
-            # padding parked in bin 0, which callers never read
-            return h
-        h = jnp.sum(jax.nn.one_hot(b, n_bins, dtype=jnp.float32), axis=0)
-        return h.astype(I32)
-    return jnp.zeros((n_bins,), I32).at[b].add(1)
+def histogram(bins: jnp.ndarray, mask: jnp.ndarray, n_bins: int) -> jnp.ndarray:
+    """Histogram of min(bins, n_bins - 1) over the lanes where mask is
+    True, as one scatter-add (i32 counts; masked lanes are not counted)."""
+    lane = jax.lax.iota(I32, bins.shape[0])
+    b = jnp.where(mask, jnp.minimum(bins, n_bins - 1),
+                  n_bins + (lane & (HIST_SPILL - 1)))
+    return jnp.zeros((n_bins + HIST_SPILL,), I32).at[b].add(1)[:n_bins]
 
 
 def segmented_cummin(starts: jnp.ndarray, vals: jnp.ndarray) -> jnp.ndarray:
@@ -113,7 +87,7 @@ def count_histogram(
     keys: u.U64, valid: jnp.ndarray, n_bins: int, max_count=None
 ) -> jnp.ndarray:
     """Histogram of per-distinct-key multiplicities in one fused pass:
-    sort -> segment lengths -> one-hot histogram.  Equivalent to
+    sort -> segment lengths -> histogram.  Equivalent to
     inserting every key into a count table (saturating at max_count)
     and binning the counts (print_hist, kc-c1.c:66-77)."""
     ks = sort_keys(keys, valid)
@@ -129,4 +103,4 @@ def count_histogram(
     mask = is_end & (length > 0)
     if max_count is not None:
         length = jnp.minimum(length, I32(max_count))
-    return histogram_by_matmul(length, mask, n_bins)
+    return histogram(length, mask, n_bins)

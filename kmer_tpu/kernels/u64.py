@@ -1,7 +1,7 @@
 """Emulated 64-bit unsigned integer ops as (hi, lo) uint32 plane pairs.
 
-TPUs have no native 64-bit vector integer lanes, so every k-mer / hash
-value is carried as two uint32 planes.  All ops are elementwise,
+Every k-mer / hash value is carried as two uint32 planes, so the code
+needs no 64-bit integer support (JAX runs with x64 disabled).  All ops are elementwise,
 shape-polymorphic, and jit-safe.  Shift amounts are Python ints (static),
 which is all the k-mer kernels need.
 

@@ -1,6 +1,6 @@
 """Device-resident open-addressing k-mer count table.
 
-The TPU-native replacement for khashl-based count tables
+The device replacement for khashl-based count tables
 (/root/reference/khashl.h:197-221 linear-probe put,
 /root/reference/kc-c4.c:116-128 per-bucket lock-free insert,
 /root/reference/yak-count.c:112-277 yak_ch_t insert/get/clear/hist/shrink).
@@ -231,8 +231,7 @@ def insert_gated(
     # callers MUST track them and rebuild before they degrade the probe
     # chains: on a singleton-heavy stream every not-yet-admitted key
     # leaves one, and an untracked table runs its data-parallel probe
-    # loop minutes long (isolated as a TPU worker watchdog crash by
-    # scripts/yak_tap_probe.py).
+    # loop minutes long.
     return t, n_new, n_dead
 
 

@@ -21,8 +21,8 @@ padded result unsliced would re-merge it one power of two larger each
 cycle, growing resident planes without bound relative to the data).
 
 The reference has no analog (khashl inserts in place as it reads,
-/root/reference/kc-c4.c:116-128); this is the TPU-native form of
-"insertion overlaps reading" for a sort-based engine.
+kc-c4.c:116-128); this is the sort-based engine's form
+of "insertion overlaps reading".
 
 Callers parameterize the plane-tuple mechanics (flat (n,) planes for
 the single-chip compactor; per-device (D, S, L) planes under shard_map
@@ -61,7 +61,7 @@ class StreamLadder:
         # called with each freshly-sorted chunk: engines hook dispatch
         # backpressure here (without it, a fast reader can enqueue every
         # chunk's sort+merge before the device runs any, holding all
-        # their buffers at once — observed as an HBM OOM at 256 Mbases)
+        # their buffers at once — observed as a device OOM at 256 Mbases)
         self._on_push = on_push
         self.pending: List[Planes] = []
         self.pending_lanes = 0

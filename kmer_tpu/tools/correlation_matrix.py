@@ -8,7 +8,7 @@ The Pearson accumulations run as sequential Python-float (C double)
 folds in the reference's exact 3-pass order
 (correlation-matrix.c:94-142), so the %.6f output is bit-identical.
 Sample counts here are small (<=1000); the heavy lifting of the
-pipeline lives upstream on the TPU.
+pipeline lives upstream on the accelerator.
 """
 
 from __future__ import annotations

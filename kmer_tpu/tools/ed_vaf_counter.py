@@ -6,7 +6,7 @@ alt k-mers within edit distance -e (edlib HW/LOC semantics), then emit
 the standard VAF file.
 
 The O(reads x patterns x read_len) search runs as the Myers bit-vector
-kernel on TPU (kmer_tpu.kernels.myers), batched over reads; the
+kernel on the device (kmer_tpu.kernels.myers), batched over reads; the
 reference is single-threaded edlib (ed-vaf-counter.c:137-150).
 """
 

@@ -5,7 +5,7 @@ Reference parity with /root/reference/snp-pattern-gen.c:219-367:
 count 0, (2) whole-genome scan counting only candidates, (3) emit SNPs
 whose ref k-mer occurs exactly once and alt k-mer never.
 
-TPU mapping: pass 2 is the counting engine in `add_existing` mode (only
+Device mapping: pass 2 is the counting engine in `add_existing` mode (only
 candidate keys get incremented — exactly the candidate-map filter of
 count_candidate_kmers, snp-pattern-gen.c:162-190); passes 1/3 are tiny
 host-side k-mer ops.

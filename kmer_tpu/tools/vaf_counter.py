@@ -7,14 +7,14 @@ k-mers, looks each up and accumulates per-SNP ref/alt counts, then
 writes the VAF file (depth header + %.4f VAF rows) and optional -v
 performance report.
 
-TPU mapping: reads stream through the same sort-based count engine as
-the kc-c4 counter (Pallas extraction, run-list accumulation), and ALL
+Device mapping: reads stream through the same sort-based count engine
+as the kc-c4 counter (fused XLA extraction, run-list accumulation), and
+ALL
 pattern k-mers resolve at the end with one global sort-join
 (compactor.counts_for) — the analog of worker_lookup's per-k-mer hash
 probe + atomic increments (vaf-counter.c:449-479), turned inside out:
 instead of probing 400M k-mers against a 42K-entry map, the map's 84K
-keys are merged into one sorted pass over the k-mer multiset.  Random
-access serializes on TPU; sorting does not.
+keys are merged into one sorted pass over the k-mer multiset.
 """
 
 from __future__ import annotations

@@ -7,7 +7,19 @@ by every reference tool), "-k31" and "-k 31" forms, and "--" to stop.
 
 from __future__ import annotations
 
+import os
 from typing import List, Tuple
+
+
+def env_flag(name: str, default: bool) -> bool:
+    """Boolean KMER_TPU_* setting: 1/true/on/yes or 0/false/off/no;
+    anything else (or unset) keeps the default."""
+    env = os.environ.get(name, "").strip().lower()
+    if env in ("1", "true", "on", "yes"):
+        return True
+    if env in ("0", "false", "off", "no"):
+        return False
+    return default
 
 
 def ketopt(argv: List[str], ostr: str) -> Tuple[List[Tuple[str, str]], List[str]]:

@@ -1,6 +1,6 @@
 """Independent numpy/pure-Python oracle implementations of the reference
 semantics (rolling canonical k-mer extraction, hash64, dict counting),
-used to validate the TPU kernels.  Derived from the documented behavior
+used to validate the device kernels.  Derived from the documented behavior
 of /root/reference/kc-c1.c:31-49 and kc-c4.c:40-100."""
 
 import numpy as np

@@ -31,32 +31,44 @@ def test_merge_matches_sort(n, sent_frac):
     mh, ml = bitonic.merge_sorted_halves(ch, cl)
     assert np.array_equal(np.asarray(mh), np.asarray(rh))
     assert np.array_equal(np.asarray(ml), np.asarray(rl))
-    # the pure-XLA oracle agrees lane for lane
-    xh, xl = bitonic.merge_sorted_halves_xla(ch, cl)
-    assert np.array_equal(np.asarray(xh), np.asarray(rh))
-    assert np.array_equal(np.asarray(xl), np.asarray(rl))
+    # the donated form agrees lane for lane
+    dh, dl = bitonic.merge_sorted_halves_donated(jnp.array(ch), jnp.array(cl))
+    assert np.array_equal(np.asarray(dh), np.asarray(rh))
+    assert np.array_equal(np.asarray(dl), np.asarray(rl))
 
 
-def test_merge_tile_pallas_interpret():
-    """Force the Pallas tile path (n == TILE) under interpret mode."""
-    n = bitonic.TILE
-    (ch, cl), (rh, rl) = _sorted_halves(np.random.default_rng(7), n)
-    mh, ml = bitonic.merge_sorted_halves(ch, cl, use_pallas=True)
+@pytest.mark.parametrize("log2n", [18, 19, 21])
+def test_merge_cascade_xla(log2n):
+    """The XLA stage cascade at the sizes the stream ladder's first
+    carries reach, with sentinel tails, against lax.sort."""
+    n = 1 << log2n
+    (ch, cl), (rh, rl) = _sorted_halves(np.random.default_rng(log2n), n, 0.1)
+    mh, ml = bitonic.merge_sorted_halves(ch, cl)
     assert np.array_equal(np.asarray(mh), np.asarray(rh))
     assert np.array_equal(np.asarray(ml), np.asarray(rl))
 
 
-@pytest.mark.parametrize("extra_bits", [1, 3])
-def test_merge_high_stride_pallas_interpret(extra_bits):
-    """n > TILE exercises the two-tile _xstage_pallas stages."""
-    n = bitonic.TILE << extra_bits
-    (ch, cl), (rh, rl) = _sorted_halves(np.random.default_rng(5), n, 0.1)
-    mh, ml = bitonic.merge_sorted_halves(ch, cl, use_pallas=True)
-    assert np.array_equal(np.asarray(mh), np.asarray(rh))
-    assert np.array_equal(np.asarray(ml), np.asarray(rl))
+def test_merge_three_plane():
+    """3-plane lex merge (key_hi, key_lo, lane_idx) at 2^18 lanes with
+    many equal keys: the lane index breaks every tie."""
+    n = 1 << 18
+    rng = np.random.default_rng(3)
+    hi = rng.integers(0, 4, n, dtype=np.uint32)
+    lo = rng.integers(0, 64, n, dtype=np.uint32)
+    x = rng.permutation(n).astype(np.uint32)
+    half = n // 2
+    runs = [jax.lax.sort((jnp.asarray(hi[s]), jnp.asarray(lo[s]),
+                          jnp.asarray(x[s])), num_keys=3)
+            for s in (slice(0, half), slice(half, n))]
+    cat = [jnp.concatenate([a, b]) for a, b in zip(*runs)]
+    got = bitonic.merge_sorted_halves3(*cat)
+    want = jax.lax.sort((jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(x)),
+                        num_keys=3)
+    for g, w in zip(got, want):
+        assert np.array_equal(np.asarray(g), np.asarray(w))
 
 
-@pytest.mark.parametrize("n", [1 << 10, bitonic.TILE << 1])
+@pytest.mark.parametrize("n", [1 << 10, 1 << 19])
 def test_merge_single_plane(n):
     rng = np.random.default_rng(n)
     lo = rng.integers(0, 1 << 31, n, dtype=np.uint32)
@@ -66,10 +78,11 @@ def test_merge_single_plane(n):
     l1 = jax.lax.sort(jnp.asarray(lo[half:]))
     ref = jax.lax.sort(jnp.asarray(lo))
     cat = jnp.concatenate([l0, l1])
-    out_p = bitonic.merge_sorted_halves1(cat, use_pallas=True)
-    out_x = bitonic.merge_sorted_halves1(cat, use_pallas=False)
-    assert np.array_equal(np.asarray(out_p), np.asarray(ref))
-    assert np.array_equal(np.asarray(out_x), np.asarray(ref))
+    out = bitonic.merge_sorted_halves1(cat)
+    assert np.array_equal(np.asarray(out), np.asarray(ref))
+    # the donated form gives the same planes
+    out_d = bitonic.merge_sorted_halves1_donated(jnp.array(cat))
+    assert np.array_equal(np.asarray(out_d), np.asarray(ref))
 
 
 @pytest.mark.parametrize("n_runs", [1, 2, 3, 5, 8])

@@ -95,9 +95,9 @@ def test_ed_vaf_fscanf_quirks(tmp_path, genome, max_e):
         capture_output=True, check=True)
     from kmer_tpu.tools.ed_vaf_counter import main
 
-    assert not main(["-p", pat, "-o", str(tmp_path / "tpu.vaf"),
+    assert not main(["-p", pat, "-o", str(tmp_path / "our.vaf"),
                      "-e", str(max_e), fq])
-    assert _read(tmp_path / "tpu.vaf") == _read(tmp_path / "ref.vaf")
+    assert _read(tmp_path / "our.vaf") == _read(tmp_path / "ref.vaf")
 
 
 def test_vaf_counter_fscanf_quirks(tmp_path, genome):
@@ -109,8 +109,8 @@ def test_vaf_counter_fscanf_quirks(tmp_path, genome):
         capture_output=True, check=True)
     from kmer_tpu.tools.vaf_counter import main
 
-    assert not main(["-k21", "-p", pat, "-o", str(tmp_path / "tpu.vaf"), fq])
-    assert _read(tmp_path / "tpu.vaf") == _read(tmp_path / "ref.vaf")
+    assert not main(["-k21", "-p", pat, "-o", str(tmp_path / "our.vaf"), fq])
+    assert _read(tmp_path / "our.vaf") == _read(tmp_path / "ref.vaf")
 
 
 def test_unequal_kmer_lengths_use_ref_len(tmp_path, genome):
@@ -131,8 +131,8 @@ def test_unequal_kmer_lengths_use_ref_len(tmp_path, genome):
         capture_output=True, check=True)
     from kmer_tpu.tools.ed_vaf_counter import main
 
-    assert not main(["-p", pat, "-o", str(tmp_path / "tpu.vaf"), "-e", "0", fq])
-    got = _read(tmp_path / "tpu.vaf")
+    assert not main(["-p", pat, "-o", str(tmp_path / "our.vaf"), "-e", "0", fq])
+    got = _read(tmp_path / "our.vaf")
     assert got == _read(tmp_path / "ref.vaf")
     # truncated alt == ref prefix: both columns must carry equal counts
     row = got.splitlines()[2].split(b"\t")
@@ -157,8 +157,8 @@ def test_int_overflow_matches_glibc(tmp_path):
         capture_output=True, check=True)
     from kmer_tpu.tools.ed_vaf_counter import main
 
-    assert not main(["-p", pat, "-o", str(tmp_path / "tpu.vaf"), "-e", "0", fq])
-    got = _read(tmp_path / "tpu.vaf")
+    assert not main(["-p", pat, "-o", str(tmp_path / "our.vaf"), "-e", "0", fq])
+    got = _read(tmp_path / "our.vaf")
     assert got == _read(tmp_path / "ref.vaf")
     assert b"\t-1\t" in got and b"\t0\trs1\t" in got
 
@@ -185,5 +185,5 @@ def test_snp_pattern_gen_bed_fscanf_quirks(tmp_path, genome):
         from kmer_tpu.tools.snp_pattern_gen import main
 
         assert not main([*args, "-b", bed, "-f", fa,
-                         "-o", str(tmp_path / "tpu.pat")])
-        assert _read(tmp_path / "tpu.pat") == _read(tmp_path / "ref.pat")
+                         "-o", str(tmp_path / "our.pat")])
+        assert _read(tmp_path / "our.pat") == _read(tmp_path / "ref.pat")

@@ -435,19 +435,17 @@ def test_sort_vs_table_yak_engines_identical(tmp_path):
 def test_ktc_cli_full_stderr_byte_identical_warm(refbin):
     """The real ./ktc process surface: stdout AND FULL stderr — no
     [M-line filtering — byte-identical to the reference binary, run
-    TWICE in fresh processes.  The second run loads warm
-    compile-cache entries: XLA stamps tuning pseudo-features into
-    cached CPU AOT executables and the loader dumps a multi-KB
-    mismatch error to fd 2 on every warm load, which broke warm-run
-    stderr parity for four rounds while cold-run diffs (and in-process
-    capsys tests) stayed clean.  ktc routes fd 2 through a grep child;
-    this pins that the route holds."""
+    TWICE in fresh processes, so the second run loads warm
+    compile-cache entries: a native XLA log line on a warm load would
+    break stderr parity while cold-run diffs (and in-process capsys
+    tests) stay clean.  ktc sets the native log level before JAX is
+    imported; this pins that it holds."""
     args = ["-k21", "-b19", READS]
     ref = subprocess.run(
         [os.path.join(REFBIN, "yak-count")] + args, capture_output=True,
         check=True,
     )
-    env = dict(os.environ, KMER_TPU_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     for run in ("cold-or-warm", "warm"):
         got = subprocess.run(
             [os.path.join(REPO, "ktc"), "yak-count"] + args,

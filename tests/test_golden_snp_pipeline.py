@@ -58,33 +58,33 @@ def test_full_pipeline_parity(refbin, tmp_path, engine_mode):
 
     # step 1: snp-pattern-gen
     run_ref(refbin, "snp-pattern-gen", ["-k21", "-b", BED, "-f", GENOME, "-o", f"{d}/ref.pat"])
-    run_ours("snp-pattern-gen", ["-k21", "-b", BED, "-f", GENOME, "-o", f"{d}/tpu.pat"])
-    assert _read(f"{d}/tpu.pat") == _read(f"{d}/ref.pat")
+    run_ours("snp-pattern-gen", ["-k21", "-b", BED, "-f", GENOME, "-o", f"{d}/our.pat"])
+    assert _read(f"{d}/our.pat") == _read(f"{d}/ref.pat")
 
     # step 2: vaf-counter per sample
     for s in SAMPLES:
         fq = os.path.join(FIXTURES, f"{s}.fq.gz")
         run_ref(refbin, "vaf-counter", ["-k21", "-p", f"{d}/ref.pat", "-o", f"{d}/ref_{s}.vaf", fq])
-        run_ours("vaf-counter", ["-k21", "-p", f"{d}/tpu.pat", "-o", f"{d}/tpu_{s}.vaf", fq])
-        assert _read(f"{d}/tpu_{s}.vaf") == _read(f"{d}/ref_{s}.vaf"), s
+        run_ours("vaf-counter", ["-k21", "-p", f"{d}/our.pat", "-o", f"{d}/our_{s}.vaf", fq])
+        assert _read(f"{d}/our_{s}.vaf") == _read(f"{d}/ref_{s}.vaf"), s
 
     # step 3: correlation-matrix (+ tree)
     ref_vafs = [f"{d}/ref_{s}.vaf" for s in SAMPLES]
-    tpu_vafs = [f"{d}/tpu_{s}.vaf" for s in SAMPLES]
+    our_vafs = [f"{d}/our_{s}.vaf" for s in SAMPLES]
     run_ref(refbin, "correlation-matrix", ["-o", f"{d}/ref.corr", "-t"] + ref_vafs)
-    run_ours("correlation-matrix", ["-o", f"{d}/tpu.corr", "-t"] + tpu_vafs)
+    run_ours("correlation-matrix", ["-o", f"{d}/our.corr", "-t"] + our_vafs)
     # sample names come from the VAF filenames; normalize the prefix
     ref_corr = _read(f"{d}/ref.corr").replace(b"ref_", b"")
-    tpu_corr = _read(f"{d}/tpu.corr").replace(b"tpu_", b"")
-    assert tpu_corr == ref_corr
-    assert _read(f"{d}/tpu.tree").replace(b"tpu_", b"") == _read(
+    our_corr = _read(f"{d}/our.corr").replace(b"our_", b"")
+    assert our_corr == ref_corr
+    assert _read(f"{d}/our.tree").replace(b"our_", b"") == _read(
         f"{d}/ref.tree"
     ).replace(b"ref_", b"")
 
     # step 4: match-classifier — fixed threshold and predefined model
     run_ref(refbin, "match-classifier", ["-c", f"{d}/ref.corr", "-o", f"{d}/ref.m1", "-v"])
-    run_ours("match-classifier", ["-c", f"{d}/tpu.corr", "-o", f"{d}/tpu.m1", "-v"])
-    assert _read(f"{d}/tpu.m1").replace(b"tpu_", b"") == _read(f"{d}/ref.m1").replace(b"ref_", b"")
+    run_ours("match-classifier", ["-c", f"{d}/our.corr", "-o", f"{d}/our.m1", "-v"])
+    assert _read(f"{d}/our.m1").replace(b"our_", b"") == _read(f"{d}/ref.m1").replace(b"ref_", b"")
 
     run_ref(
         refbin,
@@ -93,33 +93,33 @@ def test_full_pipeline_parity(refbin, tmp_path, engine_mode):
     )
     run_ours(
         "match-classifier",
-        ["-c", f"{d}/tpu.corr", "-o", f"{d}/tpu.m2", "-v", "-P"] + tpu_vafs,
+        ["-c", f"{d}/our.corr", "-o", f"{d}/our.m2", "-v", "-P"] + our_vafs,
     )
-    assert _read(f"{d}/tpu.m2").replace(b"tpu_", b"") == _read(f"{d}/ref.m2").replace(b"ref_", b"")
+    assert _read(f"{d}/our.m2").replace(b"our_", b"") == _read(f"{d}/ref.m2").replace(b"ref_", b"")
 
     # sanity: the pipeline found the replicate pair
-    assert b"MATCHED" in _read(f"{d}/tpu.m2")
+    assert b"MATCHED" in _read(f"{d}/our.m2")
 
     # correlation preset modes (-M) and explicit -m/-d overrides
     for mode_args in (["-M", "matched"], ["-M", "strict"], ["-m", "5", "-d", "2"]):
         run_ref(refbin, "correlation-matrix",
                 ["-o", f"{d}/ref.mc"] + mode_args + ref_vafs)
         run_ours("correlation-matrix",
-                 ["-o", f"{d}/tpu.mc"] + mode_args + tpu_vafs)
-        assert _read(f"{d}/tpu.mc").replace(b"tpu_", b"") == _read(
+                 ["-o", f"{d}/our.mc"] + mode_args + our_vafs)
+        assert _read(f"{d}/our.mc").replace(b"our_", b"") == _read(
             f"{d}/ref.mc"
         ).replace(b"ref_", b""), mode_args
 
     # trained-threshold mode (-T): known matched pair -> midpoint threshold
     with open(f"{d}/ref.pairs", "w") as f:
         f.write(f"ref_{SAMPLES[0]}\tref_{SAMPLES[1]}\n")
-    with open(f"{d}/tpu.pairs", "w") as f:
-        f.write(f"tpu_{SAMPLES[0]}\ttpu_{SAMPLES[1]}\n")
+    with open(f"{d}/our.pairs", "w") as f:
+        f.write(f"our_{SAMPLES[0]}\tour_{SAMPLES[1]}\n")
     run_ref(refbin, "match-classifier",
             ["-c", f"{d}/ref.corr", "-o", f"{d}/ref.m3", "-v", "-T", f"{d}/ref.pairs"])
     run_ours("match-classifier",
-             ["-c", f"{d}/tpu.corr", "-o", f"{d}/tpu.m3", "-v", "-T", f"{d}/tpu.pairs"])
-    assert _read(f"{d}/tpu.m3").replace(b"tpu_", b"") == _read(
+             ["-c", f"{d}/our.corr", "-o", f"{d}/our.m3", "-v", "-T", f"{d}/our.pairs"])
+    assert _read(f"{d}/our.m3").replace(b"our_", b"") == _read(
         f"{d}/ref.m3"
     ).replace(b"ref_", b"")
 
@@ -127,8 +127,8 @@ def test_full_pipeline_parity(refbin, tmp_path, engine_mode):
     run_ref(refbin, "match-classifier",
             ["-c", f"{d}/ref.corr", "-o", f"{d}/ref.m4", "-v", "-P", "-F"] + ref_vafs)
     run_ours("match-classifier",
-             ["-c", f"{d}/tpu.corr", "-o", f"{d}/tpu.m4", "-v", "-P", "-F"] + tpu_vafs)
-    assert _read(f"{d}/tpu.m4").replace(b"tpu_", b"") == _read(
+             ["-c", f"{d}/our.corr", "-o", f"{d}/our.m4", "-v", "-P", "-F"] + our_vafs)
+    assert _read(f"{d}/our.m4").replace(b"our_", b"") == _read(
         f"{d}/ref.m4"
     ).replace(b"ref_", b"")
 
@@ -162,5 +162,5 @@ def test_correlation_unequal_sample_lengths(refbin, tmp_path, min_depth):
     run_ref(refbin, "correlation-matrix",
             ["-d", str(min_depth), "-o", f"{d}/ref.corr"] + vafs)
     run_ours("correlation-matrix",
-             ["-d", str(min_depth), "-o", f"{d}/tpu.corr"] + vafs)
-    assert _read(f"{d}/tpu.corr") == _read(f"{d}/ref.corr")
+             ["-d", str(min_depth), "-o", f"{d}/our.corr"] + vafs)
+    assert _read(f"{d}/our.corr") == _read(f"{d}/ref.corr")

@@ -95,8 +95,8 @@ def test_ed_vaf_parity(patterns, tmp_path, max_e):
     )
     from kmer_tpu.tools.ed_vaf_counter import main
 
-    assert not main(["-p", sub, "-o", str(tmp_path / "tpu.vaf"), "-e", str(max_e), fq])
-    assert _read(tmp_path / "tpu.vaf") == _read(tmp_path / "ref.vaf")
+    assert not main(["-p", sub, "-o", str(tmp_path / "our.vaf"), "-e", str(max_e), fq])
+    assert _read(tmp_path / "our.vaf") == _read(tmp_path / "ref.vaf")
 
 
 @pytest.mark.parametrize("max_e", [0, 1, 2])
@@ -131,9 +131,9 @@ def test_ed_vaf_byte_exact_alphabet(tmp_path, max_e):
     )
     from kmer_tpu.tools.ed_vaf_counter import main
 
-    assert not main(["-p", pat, "-o", str(tmp_path / "tpu.vaf"),
+    assert not main(["-p", pat, "-o", str(tmp_path / "our.vaf"),
                      "-e", str(max_e), fq])
-    assert _read(tmp_path / "tpu.vaf") == _read(tmp_path / "ref.vaf")
+    assert _read(tmp_path / "our.vaf") == _read(tmp_path / "ref.vaf")
 
 
 def test_bam_vaf_parity_indexed_and_sequential(patterns, tmp_path):
@@ -148,8 +148,8 @@ def test_bam_vaf_parity_indexed_and_sequential(patterns, tmp_path):
         capture_output=True,
         check=True,
     )
-    assert not main(["-p", patterns, "-o", str(tmp_path / "tpu.vaf"), bam])
-    assert _read(tmp_path / "tpu.vaf") == _read(tmp_path / "ref.vaf")
+    assert not main(["-p", patterns, "-o", str(tmp_path / "our.vaf"), bam])
+    assert _read(tmp_path / "our.vaf") == _read(tmp_path / "ref.vaf")
 
     # sequential fallback: copy without the .bai
     import shutil
@@ -161,8 +161,8 @@ def test_bam_vaf_parity_indexed_and_sequential(patterns, tmp_path):
         capture_output=True,
         check=True,
     )
-    assert not main(["-p", patterns, "-o", str(tmp_path / "tpu2.vaf"), noidx])
-    assert _read(tmp_path / "tpu2.vaf") == _read(tmp_path / "ref2.vaf")
+    assert not main(["-p", patterns, "-o", str(tmp_path / "our2.vaf"), noidx])
+    assert _read(tmp_path / "our2.vaf") == _read(tmp_path / "ref2.vaf")
 
 
 def test_bam_native_vs_python_sequential(patterns, tmp_path, monkeypatch):
@@ -291,8 +291,8 @@ def test_sam_text_vaf_parity(patterns, tmp_path):
         capture_output=True,
         check=True,
     )
-    assert not main(["-p", patterns, "-o", str(tmp_path / "tpu.vaf"), sam])
-    assert _read(tmp_path / "tpu.vaf") == _read(tmp_path / "ref.vaf")
+    assert not main(["-p", patterns, "-o", str(tmp_path / "our.vaf"), sam])
+    assert _read(tmp_path / "our.vaf") == _read(tmp_path / "ref.vaf")
 
 
 @pytest.mark.parametrize("ext", ["vcf", "bcf", "vcf.gz"])
@@ -308,8 +308,8 @@ def test_vcf_vaf_parity(patterns, tmp_path, ext):
         capture_output=True,
         check=True,
     )
-    assert not main(["-p", patterns, "-v", vcf, "-o", str(tmp_path / "tpu.vaf")])
-    assert _read(tmp_path / "tpu.vaf") == _read(tmp_path / "ref.vaf")
+    assert not main(["-p", patterns, "-v", vcf, "-o", str(tmp_path / "our.vaf")])
+    assert _read(tmp_path / "our.vaf") == _read(tmp_path / "ref.vaf")
 
 
 def test_ed_long_reads_and_patterns(tmp_path):
@@ -350,9 +350,9 @@ def test_ed_long_reads_and_patterns(tmp_path):
             check=True,
         )
         assert not main(
-            ["-p", pat, "-o", str(tmp_path / "tpu.vaf"), "-e", str(e), fq]
+            ["-p", pat, "-o", str(tmp_path / "our.vaf"), "-e", str(e), fq]
         )
-        assert _read(tmp_path / "tpu.vaf") == _read(tmp_path / "ref.vaf"), e
+        assert _read(tmp_path / "our.vaf") == _read(tmp_path / "ref.vaf"), e
 
 
 @pytest.fixture(scope="module", params=["3.0", "3.1"])
@@ -432,8 +432,8 @@ def test_cram_vaf_parity(patterns, cram_fixture, tmp_path):
     )
     from kmer_tpu.tools.bam_vaf_counter import main
 
-    assert not main(["-p", patterns, "-o", f"{d}/tpu.vaf", cram_fixture])
-    assert _read(f"{d}/tpu.vaf") == _read(f"{d}/ref.vaf")
+    assert not main(["-p", patterns, "-o", f"{d}/our.vaf", cram_fixture])
+    assert _read(f"{d}/our.vaf") == _read(f"{d}/ref.vaf")
 
 
 def test_cram_crai_indexed_parity(patterns, cram_fixture, tmp_path):
@@ -466,8 +466,8 @@ def test_cram_crai_indexed_parity(patterns, cram_fixture, tmp_path):
     )
     from kmer_tpu.tools.bam_vaf_counter import main
 
-    assert not main(["-p", patterns, "-o", f"{d}/tpu.vaf", cram])
-    assert _read(f"{d}/tpu.vaf") == _read(f"{d}/ref.vaf")
+    assert not main(["-p", patterns, "-o", f"{d}/our.vaf", cram])
+    assert _read(f"{d}/our.vaf") == _read(f"{d}/ref.vaf")
     # sanity: the indexed path actually diverges from sequential (the
     # fixture panel is dense), so this test is not vacuous
     subprocess.run(

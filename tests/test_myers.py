@@ -1,6 +1,6 @@
 """Unit tests for the Myers bit-vector kernels (kmer_tpu.kernels.myers).
 
-The multi-word TPU kernel is checked against two independent oracles:
+The multi-word device kernel is checked against two independent oracles:
 the single-word kernel in their overlap range (m <= 32, where the two
 share no word-handling code paths — one word vs ripple carries), and
 the numpy uint64 host implementation for long patterns (itself pinned

@@ -1,101 +1,49 @@
-"""Pallas kernels under CPU CI via Mosaic interpret mode.
-
-On real hardware the kernels run compiled (and the CLI golden tests plus
-KMER_TPU_DEBUG cross-check them); here every kernel is executed in
-interpret mode against the pure-XLA / numpy oracles so CPU-only CI still
-covers the TPU code paths."""
+"""Extraction step (encode -> canonical window -> hash64 -> sentinel)
+against the independent scalar oracle in tests/ref_np.py, and the
+uniform-read rows fast path against the flat path."""
 
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
-from jax.experimental.pallas import tpu as pltpu
 
-from kmer_tpu.kernels.encode import encode_bases
-from kmer_tpu.kernels.kmer import extract_canonical
+from ref_np import rolling_kmers
 
 RNG = np.random.default_rng(23)
+SENT = 0xFFFFFFFF
 
 
-def _xla_extract(block, k):
-    codes = encode_bases(jnp.asarray(block))
-    out = extract_canonical(codes, k, apply_hash64=True)
-    hi = jnp.where(out.valid, out.kmer.hi, jnp.uint32(0xFFFFFFFF))
-    lo = jnp.where(out.valid, out.kmer.lo, jnp.uint32(0xFFFFFFFF))
-    return np.asarray(hi), np.asarray(lo), int(jnp.sum(out.valid))
-
-
-@pytest.mark.parametrize("k", [1, 15, 21, 31, 32])
-def test_extract_tpu_interpret_matches_xla(k):
-    from kmer_tpu.kernels.extract_tpu import extract_hashed_tpu
-
-    n = 512 * 128 * 3
-    block = RNG.choice(
+def _dirty_block(n, rng):
+    return rng.choice(
         np.frombuffer(b"ACGTNacgt\x00x", np.uint8), size=n,
         p=[0.22, 0.22, 0.22, 0.22, 0.02, 0.02, 0.02, 0.02, 0.01, 0.02, 0.01],
     )
-    want_hi, want_lo, want_nk = _xla_extract(block, k)
-    with pltpu.force_tpu_interpret_mode():
-        hi, lo, nk = extract_hashed_tpu(jnp.asarray(block), k, tile_rows=512)
-    assert int(nk) == want_nk
-    assert np.array_equal(np.asarray(hi), want_hi)
-    assert np.array_equal(np.asarray(lo), want_lo)
 
 
-@pytest.mark.parametrize("weighted", [False, True])
-def test_seghist_interpret_matches_numpy(weighted):
-    from kmer_tpu.kernels.seghist import segment_end_lengths_sorted
+@pytest.mark.parametrize("k", [1, 15, 21, 31, 32])
+def test_extract_step_matches_ref_np(k):
+    """Every lane of the device step equals the scalar rolling loop's
+    hashed canonical k-mer at that position (or the sentinel where no
+    window ends).  At k = 32 the reference's shift semantics collapse
+    every key to one value (kernels/kmer.py), so only its validity and
+    constancy are compared."""
+    from kmer_tpu.pipeline.counter import _extract_step
 
-    n = 65536 * 3
-    n_real = n - 7777
-    keys = np.sort(RNG.integers(0, 4000, size=n_real, dtype=np.uint64) * 2654435761)
-    hi = np.full(n, 0xFFFFFFFF, np.uint32)
-    lo = np.full(n, 0xFFFFFFFF, np.uint32)
-    hi[:n_real] = (keys >> np.uint64(32)).astype(np.uint32)
-    lo[:n_real] = keys.astype(np.uint32)
-    w = RNG.integers(1, 7, size=n).astype(np.uint32)
-    with pltpu.force_tpu_interpret_mode():
-        emit, final = segment_end_lengths_sorted(
-            jnp.asarray(hi), jnp.asarray(lo),
-            jnp.asarray(w) if weighted else None,
-            weighted=weighted, tile_rows=512,
-        )
-    emit = np.asarray(emit)
-    final = np.asarray(final)
-    uniq, idx, counts = np.unique(keys, return_index=True, return_counts=True)
-    if weighted:
-        want = np.add.reduceat(w[:n_real].astype(np.int64), idx)
+    block = _dirty_block(4099, np.random.default_rng(k))
+    hi, lo, nk = _extract_step(jnp.asarray(block), k)
+    keys = (np.asarray(hi).astype(np.uint64) << np.uint64(32)) | np.asarray(
+        lo).astype(np.uint64)
+    want = rolling_kmers(block.tobytes(), k, do_hash=True)
+    pos = np.array([i for i, _ in want], np.int64)
+    valid = np.zeros(len(block), bool)
+    valid[pos] = True
+    assert int(nk) == len(want)
+    assert (keys[~valid] == np.uint64(0xFFFFFFFFFFFFFFFF)).all()
+    if k < 32:
+        vals = np.array([y for _, y in want], np.uint64)
+        assert np.array_equal(keys[pos], vals)
     else:
-        want = counts
-    got = emit[emit > 0]
-    # the final (sentinel) run must be excluded by the kernel
-    assert (np.uint32(final[0]), np.uint32(final[1])) == (0xFFFFFFFF, 0xFFFFFFFF)
-    assert np.array_equal(np.sort(got), np.sort(want))
-
-
-def test_seghist_bins_interpret():
-    from kmer_tpu.kernels.seghist import segment_bins_sorted
-
-    n = 65536
-    keys = np.sort(RNG.integers(0, 300, size=n, dtype=np.uint64) * 1315423911)
-    hi = (keys >> np.uint64(32)).astype(np.uint32)
-    lo = keys.astype(np.uint32)
-    with pltpu.force_tpu_interpret_mode():
-        bins, final = segment_bins_sorted(
-            jnp.asarray(hi), jnp.asarray(lo), tile_rows=512,
-            bins_cfg=(256, 255, 2),
-        )
-    bins = np.asarray(bins)
-    uniq, counts = np.unique(keys, return_counts=True)
-    want = np.minimum(counts, 255)
-    want = want[want >= 2]
-    got = bins[bins > 0]
-    # the final run closes outside the kernel; account for it
-    fin_len = int(np.asarray(final)[2])
-    if fin_len >= 2:
-        got = np.concatenate([got, [min(fin_len, 255)]])
-    assert np.array_equal(np.sort(got.astype(np.int64)), np.sort(want))
+        assert len(np.unique(keys[pos])) == 1
 
 
 @pytest.mark.parametrize("k", [5, 21, 31])

@@ -137,7 +137,7 @@ def test_lane_index_overflow_guard():
         )
 
 
-# -- stream-sorted accumulation (TPU-default mode, forced here on CPU) --
+# -- stream-sorted accumulation (KMER_TPU_STREAM_SORT=1 mode, forced here) --
 #
 # The stream ladder sorts each chunk as it arrives and folds with the
 # 3-plane bitonic merge; mode must be invisible in every output.
